@@ -13,9 +13,9 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from saamge_tpu.api import SAAMGeAlgPC
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.setup.algebraic import read_hypre_matrix
+from saamge_jax.api import SAAMGeAlgPC
+from saamge_jax.config import SolverOptions
+from saamge_jax.setup.algebraic import read_hypre_matrix
 
 
 def main():

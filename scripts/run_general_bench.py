@@ -1,5 +1,4 @@
-"""General-path (non-Cartesian) TPU throughput measurement
-(VERDICT r4 item 2).
+"""General-path (non-Cartesian) device throughput measurement.
 
 Every recorded DOFs/s figure so far is the structured brick fast path;
 the reference is mesh-agnostic (METIS partitioning of arbitrary dual
@@ -24,12 +23,11 @@ Two problems:
       operator is NOT a stencil and the format picker falls back to
       banded/ELL.
 
-Timing follows bench.py discipline: whole rep-chains inside one jitted
-scan, three independently-compiled draws, min taken.  The setup
-product is cached in .bench_cache/ so re-runs skip the host setup.
+Timing follows bench.py: the whole rep-chain runs inside one jitted
+scan, timed after a warm-up call.  The setup product is cached in
+.bench_cache/ so re-runs skip the host setup.
 
-Prints ONE bench-schema JSON line; commit the output as the artifact
-(GENERAL_r{N}.json).
+Prints ONE bench-schema JSON line naming the device it ran on.
 """
 
 import argparse
@@ -48,8 +46,8 @@ CUBEMESH = "/root/reference/amg/data/meshes/cube474.mesh3d"
 
 
 def build_problem(args):
-    from saamge_tpu.fem import assemble
-    from saamge_tpu.fem.mesh import hex_mesh, read_mesh
+    from saamge_jax.fem import assemble
+    from saamge_jax.fem.mesh import hex_mesh, read_mesh
 
     if args.problem == "hexkway":
         mesh = hex_mesh(args.n)
@@ -78,22 +76,23 @@ def main():
     ap.add_argument("--levels", type=int, default=3)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--no-cache", action="store_true")
-    ap.add_argument("--host-setup", action="store_true")
+    ap.add_argument("--device-setup", action="store_true",
+                    help="batched device eigensolver pipeline "
+                         "(default: host float64 eigensolver)")
     args = ap.parse_args()
 
     import jax
-    if os.environ.get("JAX_PLATFORMS") == "cpu":
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    on_tpu = jax.devices()[0].platform == "tpu"
+    dev = jax.devices()[0]
 
     tag = (f"{args.problem}_n{args.n}" if args.problem == "hexkway"
            else f"{args.problem}_r{args.refs}")
     cpath = os.path.join(_REPO, ".bench_cache",
                          f"general_{tag}_L{args.levels}"
                          f"_e{args.elems_per_agg}.pkl")
-    extra = {"problem": args.problem,
-             "platform": jax.devices()[0].platform}
+    extra = {"problem": args.problem, "platform": dev.platform,
+             "device": {"platform": dev.platform, "kind": dev.device_kind,
+                        "count": len(jax.devices())}}
 
     if not args.no_cache and os.path.exists(cpath):
         with open(cpath, "rb") as f:
@@ -103,8 +102,8 @@ def main():
         extra["setup_from_cache"] = True
         ndof = A.shape[0]
     else:
-        from saamge_tpu.api import SpectralAMGSolver
-        from saamge_tpu.config import SolverOptions
+        from saamge_jax.api import SpectralAMGSolver
+        from saamge_jax.config import SolverOptions
 
         t0 = time.perf_counter()
         mesh, A, b, em, ess, theta = build_problem(args)
@@ -120,7 +119,7 @@ def main():
             nu_relax=[3, 1] if args.levels >= 3 else 3,
             first_elems_per_agg=args.elems_per_agg,
             elems_per_agg=args.elems_per_agg,
-            device_setup=on_tpu and not args.host_setup)
+            device_setup=args.device_setup)
         t0 = time.perf_counter()
         # partitioning=None => generic dual-graph k-way partitioner
         # (native/partition.cpp), the METIS-analog general path
@@ -140,7 +139,7 @@ def main():
                 pickle.dump({"ml": ml, "A": A, "b": b, "meta": meta}, f)
             os.replace(cpath + ".tmp", cpath)
 
-    from saamge_tpu.solve.compiled import (compile_hierarchy, pcg_solve,
+    from saamge_jax.solve.compiled import (compile_hierarchy, pcg_solve,
                                            vcycle)
 
     t0 = time.perf_counter()
@@ -154,22 +153,20 @@ def main():
     _, iters8, _ = pcg_solve(h, bdev, rel_tol=1e-8, max_iter=300)
     extra["pcg_iters_1e-8"] = int(iters8)
 
-    draws = []
-    for R in (args.reps, args.reps + 1, args.reps + 2):
-        @jax.jit
-        def chain(hier, b0):
-            def body(c, _):
-                return vcycle(hier, b0, c), ()
-            y, _ = jax.lax.scan(body, jnp.zeros_like(b0), jnp.zeros(R))
-            return jnp.sum(y)
+    R = args.reps
 
-        float(chain(h, bdev))
-        t0 = time.perf_counter()
-        float(chain(h, bdev * 1.000001))
-        draws.append((time.perf_counter() - t0) / R)
-    dt = min(draws)
+    @jax.jit
+    def chain(hier, b0):
+        def body(c, _):
+            return vcycle(hier, b0, c), ()
+        y, _ = jax.lax.scan(body, jnp.zeros_like(b0), jnp.zeros(R))
+        return jnp.sum(y)
+
+    float(chain(h, bdev))
+    t0 = time.perf_counter()
+    float(chain(h, bdev * 1.000001))
+    dt = (time.perf_counter() - t0) / R
     extra["vcycle_ms"] = round(dt * 1e3, 3)
-    extra["vcycle_ms_draws"] = [round(d * 1e3, 3) for d in draws]
 
     payload = {
         "metric": f"3d_general_{args.problem}_vcycle_dofs_per_sec_"

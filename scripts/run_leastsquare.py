@@ -11,10 +11,10 @@ import sys
 
 sys.path.insert(0, ".")
 
-from saamge_tpu.api import SAAMGeAlgPC
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem.helmholtz import ls_helmholtz_system
-from saamge_tpu.solve.pcg import pcg
+from saamge_jax.api import SAAMGeAlgPC
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem.helmholtz import ls_helmholtz_system
+from saamge_jax.solve.pcg import pcg
 
 
 def main():

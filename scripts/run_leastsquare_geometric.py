@@ -26,11 +26,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from saamge_tpu.api import SAAMGePC
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem.helmholtz import ls_helmholtz_blocks
-from saamge_tpu.fem.mesh import quad_mesh, read_mesh
-from saamge_tpu.solve.pcg import pcg
+from saamge_jax.api import SAAMGePC
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem.helmholtz import ls_helmholtz_blocks
+from saamge_jax.fem.mesh import quad_mesh, read_mesh
+from saamge_jax.solve.pcg import pcg
 
 
 def main():

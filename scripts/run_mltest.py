@@ -10,10 +10,10 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from saamge_tpu.api import (SpectralAMGSolver, checkerboard_coef)
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import read_mesh
+from saamge_jax.api import (SpectralAMGSolver, checkerboard_coef)
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import read_mesh
 
 
 TESTMESH_PARTITION = np.array([0, 0, 1, 1, 0, 0, 2, 2, 3, 3, 3, 2])

@@ -9,12 +9,12 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from saamge_tpu.api import SpectralAMGSolver, checkerboard_coef
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import quad_mesh
-from saamge_tpu.solve.coarse import CorrectNullspace
-from saamge_tpu.solve.pcg import pcg
+from saamge_jax.api import SpectralAMGSolver, checkerboard_coef
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import quad_mesh
+from saamge_jax.solve.coarse import CorrectNullspace
+from saamge_jax.solve.pcg import pcg
 
 
 def main():

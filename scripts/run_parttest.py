@@ -7,8 +7,8 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from saamge_tpu.topology.part import partition_kway
-from saamge_tpu.utils.tables import Table
+from saamge_jax.topology.part import partition_kway
+from saamge_jax.utils.tables import Table
 
 
 def main():

@@ -18,11 +18,11 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(
     os.path.abspath(__file__)), ".."))
 
-from saamge_tpu.api import SAAMGeAlgPC, SpectralAMGSolver  # noqa: E402
-from saamge_tpu.config import SolverOptions  # noqa: E402
-from saamge_tpu.fem import assemble  # noqa: E402
-from saamge_tpu.fem.coefficients import anisotropic_tensor  # noqa: E402
-from saamge_tpu.fem.mesh import read_mesh  # noqa: E402
+from saamge_jax.api import SAAMGeAlgPC, SpectralAMGSolver  # noqa: E402
+from saamge_jax.config import SolverOptions  # noqa: E402
+from saamge_jax.fem import assemble  # noqa: E402
+from saamge_jax.fem.coefficients import anisotropic_tensor  # noqa: E402
+from saamge_jax.fem.mesh import read_mesh  # noqa: E402
 
 
 def main():

@@ -44,13 +44,13 @@ def main():
                 flags + f" --xla_force_host_platform_device_count="
                 f"{args.ranks}").strip()
 
-    from saamge_tpu.api import bdr_dof_flags
-    from saamge_tpu.fem import assemble
-    from saamge_tpu.fem.mesh import hex_mesh
-    from saamge_tpu.parallel.spmd_setup import spmd_ml_produce_data
-    from saamge_tpu.setup.ml import MultilevelParameters
-    from saamge_tpu.solve.pcg import pcg
-    from saamge_tpu.solve.vcycle import VCycleSolver
+    from saamge_jax.api import bdr_dof_flags
+    from saamge_jax.fem import assemble
+    from saamge_jax.fem.mesh import hex_mesh
+    from saamge_jax.parallel.spmd_setup import spmd_ml_produce_data
+    from saamge_jax.setup.ml import MultilevelParameters
+    from saamge_jax.solve.pcg import pcg
+    from saamge_jax.solve.vcycle import VCycleSolver
 
     mesh = hex_mesh(args.n)
     ess = np.ones(mesh.max_bdr_attr(), dtype=np.int64)

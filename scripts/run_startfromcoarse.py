@@ -13,10 +13,10 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from saamge_tpu.api import SAAMGeAlgPC, SpectralAMGSolver, checkerboard_coef
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import quad_mesh
+from saamge_jax.api import SAAMGeAlgPC, SpectralAMGSolver, checkerboard_coef
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import quad_mesh
 
 
 def main():

@@ -12,10 +12,10 @@ import scipy.sparse.linalg as spla
 
 sys.path.insert(0, ".")
 
-from saamge_tpu.api import SpectralAMGSolver, checkerboard_coef
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import hex_mesh, quad_mesh
+from saamge_jax.api import SpectralAMGSolver, checkerboard_coef
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import hex_mesh, quad_mesh
 
 
 def main():

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from saamge_tpu.api import SpectralAMGSolver, checkerboard_coef
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import quad_mesh
-from saamge_tpu.setup.adapt import adapt_approx_xbad, tg_adapt
+from saamge_jax.api import SpectralAMGSolver, checkerboard_coef
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import quad_mesh
+from saamge_jax.setup.adapt import adapt_approx_xbad, tg_adapt
 
 
 def _anisotropic_problem(n=24, eps=1e-3):
@@ -62,8 +62,8 @@ def test_double_cycle_converges():
 
 
 def test_w_cycle_converges_at_least_as_fast():
-    from saamge_tpu.solve.pcg import pcg
-    from saamge_tpu.solve.vcycle import VCycleSolver
+    from saamge_jax.solve.pcg import pcg
+    from saamge_jax.solve.vcycle import VCycleSolver
     mesh = quad_mesh(40)
     ess = np.ones(mesh.max_bdr_attr(), dtype=np.int64)
     A, b, em, _, _ = assemble.build_discrete_problem(

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from saamge_tpu.ops.batched_eig import (batched_spectral_cut,
+from saamge_jax.ops.batched_eig import (batched_spectral_cut,
                                         batched_weighted_l1)
-from saamge_tpu.setup.spectral import Eigensolver, weighted_l1_diag
+from saamge_jax.setup.spectral import Eigensolver, weighted_l1_diag
 
 
 def _rand_spd_laplacian(n, rng):
@@ -69,10 +69,10 @@ def test_truncated_mode_caps(mats):
 
 def test_end_to_end_same_iterations():
     """Full solver with device_setup=True converges like the host path."""
-    from saamge_tpu.api import SpectralAMGSolver, checkerboard_coef
-    from saamge_tpu.config import SolverOptions
-    from saamge_tpu.fem import assemble
-    from saamge_tpu.fem.mesh import quad_mesh
+    from saamge_jax.api import SpectralAMGSolver, checkerboard_coef
+    from saamge_jax.config import SolverOptions
+    from saamge_jax.fem import assemble
+    from saamge_jax.fem.mesh import quad_mesh
 
     mesh = quad_mesh(20)
     ess = np.ones(mesh.max_bdr_attr(), dtype=np.int64)
@@ -111,20 +111,21 @@ def test_batched_cut_sharded_over_mesh(mats):
         np.testing.assert_allclose(abs(cut0[i]), abs(cut1[i]), atol=1e-5)
 
 
-def test_filtered_eig_warmup_threads_harmless():
-    """Concurrent compile warm-up must populate the dispatch cache
-    without perturbing the real computation's results."""
+def test_filtered_eig_matches_eigh():
+    """The Chebyshev-filtered subspace eigensolver returns the smallest
+    eigenpairs of each batched matrix (vs the exact spectrum), for the
+    Laplacian-like spectra of scaled AE operators (a low cluster under
+    a bulk reaching ~2)."""
     import numpy as np
     import jax.numpy as jnp
-    from saamge_tpu.ops.filtered_eig import (batched_smallest_eigs,
-                                             warmup_threads)
+    from saamge_jax.ops.filtered_eig import batched_smallest_eigs
     rng = np.random.default_rng(0)
     B, n, m = 4, 48, 8
-    A = rng.standard_normal((B, n, n)).astype(np.float32)
-    M = jnp.asarray((A + A.transpose(0, 2, 1)) / (2 * np.sqrt(n))
-                    + 2.0 * np.eye(n, dtype=np.float32))
-    w_ref, X_ref, _ = batched_smallest_eigs(M, m)
-    for t in warmup_threads(B, n, m):
-        t.join(timeout=120)
-    w2, X2, _ = batched_smallest_eigs(M, m)
-    assert np.allclose(w_ref, w2, rtol=0, atol=1e-6)
+    lam = 2.0 * (np.arange(n) / n) ** 2
+    Q = np.linalg.qr(rng.standard_normal((B, n, n)))[0]
+    M = np.einsum("bij,j,bkj->bik", Q, lam, Q)
+    w, X, res = batched_smallest_eigs(jnp.asarray(M, jnp.float32), m)
+    np.testing.assert_allclose(np.asarray(w)[:, :m // 2],
+                               np.broadcast_to(lam[:m // 2], (B, m // 2)),
+                               atol=5e-4)   # f32 + leakage, ~2e-4 of sigma
+    assert np.asarray(res)[:, :m // 2].max() < 1e-3

@@ -1,5 +1,5 @@
-"""bench.py supervisor mechanics (VERDICT r3 item 1): the driver must
-ALWAYS get one JSON line, under any budget/timeout."""
+"""bench.py supervisor mechanics: a caller must ALWAYS get one JSON
+line, under any budget/timeout."""
 
 import json
 import os
@@ -26,3 +26,23 @@ def test_budget_overrun_still_emits_json():
     d = json.loads(line)
     assert d["extra"]["budget_exceeded"] is True
     assert {"metric", "value", "unit", "vs_baseline"} <= set(d)
+
+
+def test_supervisor_never_imports_jax():
+    # the measurement child must be the only JAX process on the card: the
+    # supervisor (here with a stub child that exits at once) never
+    # imports JAX
+    code = ("import subprocess, sys\n"
+            "import bench\n"
+            "class Child:\n"
+            "    def poll(self):\n"
+            "        return 0\n"
+            "subprocess.Popen = lambda *a, **k: Child()\n"
+            "sys.argv = ['bench.py', '--small']\n"
+            "assert bench.main() == 0\n"
+            "assert 'jax' not in sys.modules, 'supervisor imported jax'\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       timeout=120, cwd=REPO)
+    assert r.returncode == 0, r.stderr.decode()[-500:]
+    d = json.loads(r.stdout.decode().strip().splitlines()[-1])
+    assert d["extra"]["stage"] == "no_snapshot"

@@ -39,9 +39,9 @@ def test_mltest_order2_dims():
 
 
 def test_algebraic_dims():
-    from saamge_tpu.api import SAAMGeAlgPC
-    from saamge_tpu.config import SolverOptions
-    from saamge_tpu.setup.algebraic import read_hypre_matrix
+    from saamge_jax.api import SAAMGeAlgPC
+    from saamge_jax.config import SolverOptions
+    from saamge_jax.setup.algebraic import read_hypre_matrix
     A = read_hypre_matrix(ANISO)
     pc = SAAMGeAlgPC(A, SolverOptions(theta=0.01, first_elems_per_agg=128,
                                       correct_nulspace=False))

@@ -9,13 +9,13 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 
-from saamge_tpu.api import SpectralAMGSolver, checkerboard_coef
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import hex_mesh, quad_mesh
-from saamge_tpu.ops.sparse import (DeviceDIA, DeviceELL, device_matrix,
+from saamge_jax.api import SpectralAMGSolver, checkerboard_coef
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import hex_mesh, quad_mesh
+from saamge_jax.ops.sparse import (DeviceDIA, DeviceELL, device_matrix,
                                    dia_spmv, ell_spmv)
-from saamge_tpu.solve import compiled
+from saamge_jax.solve import compiled
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ def test_compiled_vcycle_matches_host(two_level):
     r = np.random.default_rng(3).standard_normal(A.shape[0])
     # host V-cycle
     z_host = np.zeros_like(r)
-    from saamge_tpu.solve.vcycle import tg_cycle
+    from saamge_jax.solve.vcycle import tg_cycle
     tg_cycle(A, s.ml.finest.tg_data, r, z_host)
     # device V-cycle
     z_dev = np.asarray(compiled.vcycle_apply(h, jnp.asarray(r)))
@@ -90,7 +90,7 @@ def test_compiled_vcycle_smoothed_P_matches_host():
     ELL-format smoothed P/R must reproduce the host cycle exactly —
     the device story for interp smoothing (tg_smooth_interp,
     tg.cpp:458)."""
-    from saamge_tpu.solve.vcycle import tg_cycle
+    from saamge_jax.solve.vcycle import tg_cycle
     mesh = quad_mesh(20)
     ess = np.ones(mesh.max_bdr_attr(), dtype=np.int64)
     A, b, em, _, _ = assemble.build_discrete_problem(

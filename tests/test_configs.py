@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 import scipy.sparse.linalg as spla
 
-from saamge_tpu.api import SpectralAMGSolver
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import hex_mesh, quad_mesh
+from saamge_jax.api import SpectralAMGSolver
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import hex_mesh, quad_mesh
 
 
 def test_elasticity_3d_rbm_kernel():
@@ -62,8 +62,8 @@ def test_high_contrast_inclusions_robust():
 def test_debug_ladder_sa_assert():
     """sa_assert (SA_ASSERT ladder analog, common.hpp:598-656): callables
     are only evaluated at or above their ladder level; failures raise."""
-    from saamge_tpu.config import CONFIG
-    from saamge_tpu.utils.logging import sa_assert
+    from saamge_jax.config import CONFIG
+    from saamge_jax.utils.logging import sa_assert
 
     calls = []
     old = CONFIG.debug_level
@@ -83,7 +83,7 @@ def test_debug_ladder_sa_assert():
 def test_debug_ladder_setup_invariants_run_clean():
     """At debug_level 7 the expensive setup invariants (MIS partition,
     RAP symmetry, tent-P orthonormality) all pass on a healthy problem."""
-    from saamge_tpu.config import CONFIG
+    from saamge_jax.config import CONFIG
 
     old = CONFIG.debug_level
     try:

@@ -7,14 +7,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from saamge_tpu.api import SpectralAMGSolver
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import hex_mesh
-from saamge_tpu.topology.part import partition_cartesian_3d
-from saamge_tpu.setup.device_rap import (make_structured_rap_override,
+from saamge_jax.api import SpectralAMGSolver
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import hex_mesh
+from saamge_jax.topology.part import partition_cartesian_3d
+from saamge_jax.setup.device_rap import (make_structured_rap_override,
                                          structured_rap)
-from saamge_tpu.solve.structured import BrickGeometry
+from saamge_jax.solve.structured import BrickGeometry
 
 
 def _problem(n, nbs, num_levels=2, coefs=None):
@@ -85,7 +85,7 @@ def test_sharded_rap_matches_host(ndev):
     the host product and is device-count invariant."""
     import jax
     from jax.sharding import Mesh
-    from saamge_tpu.setup.device_rap import sharded_structured_rap
+    from saamge_jax.setup.device_rap import sharded_structured_rap
     s, A, b, geo = _problem(8, (4, 2, 2))
     lv0 = s.ml.levels[0]
     tg0 = lv0.tg_data
@@ -106,7 +106,7 @@ def test_scan_rap_matches_unrolled():
     reference (_rap_jit) on asymmetric geometries."""
     import jax
     import jax.numpy as jnp
-    from saamge_tpu.setup.device_rap import _rap_jit, _rap_scan_jit
+    from saamge_jax.setup.device_rap import _rap_jit, _rap_scan_jit
     be, bricks, bs = (2, 3, 2), (3, 2, 2), 4
     nodes = tuple(B * b + 1 for B, b in zip(bricks, be))
     offsets3 = tuple((dx, dy, dz) for dx in (-1, 0, 1)

@@ -5,15 +5,15 @@ host per-AE path: same AE stiffness, same spectral cuts, same hierarchy.
 import numpy as np
 import pytest
 
-from saamge_tpu.api import SpectralAMGSolver
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import hex_mesh
-from saamge_tpu.topology.part import partition_cartesian_3d
-from saamge_tpu.setup.device_setup import analyze_uniform, \
+from saamge_jax.api import SpectralAMGSolver
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import hex_mesh
+from saamge_jax.topology.part import partition_cartesian_3d
+from saamge_jax.setup.device_setup import analyze_uniform, \
     uniform_spectral_cut
-from saamge_tpu.setup.elmat import GeometricProvider
-from saamge_tpu.api import geometric_partitioning, bdr_dof_flags
+from saamge_jax.setup.elmat import GeometricProvider
+from saamge_jax.api import geometric_partitioning, bdr_dof_flags
 
 
 def _mk(n=8, nb=2, coef=None):
@@ -44,8 +44,8 @@ def test_analyze_uniform_detects_bricks():
     assert plan is not None
     assert plan.n == rels.AE_to_dof.row_sizes()[0]
     # non-uniform partition -> rejected
-    from saamge_tpu.topology.part import partition_kway
-    from saamge_tpu.utils.tables import Table
+    from saamge_jax.topology.part import partition_kway
+    from saamge_jax.utils.tables import Table
     part2 = partition_kway(
         Table.from_csr_like(None, mesh.elem_to_elem().indptr,
                             mesh.elem_to_elem().indices)
@@ -68,7 +68,7 @@ def test_uniform_cut_matches_host_eigensolver():
     assert out is not None
     cut, skipped, bdiags, aes = out
 
-    from saamge_tpu.setup.spectral import Eigensolver
+    from saamge_jax.setup.spectral import Eigensolver
     eig = Eigensolver()
     for p in range(rels.nparts):
         A_T = prov.build_AE_stiff(p)
@@ -118,7 +118,7 @@ def test_device_setup_covers_anisotropic_tensor():
     element matrices through a small SVD basis (r <= d(d+1)/2 + 1)
     instead of requiring scalar multiples, and the resulting hierarchy
     matches the host setup (AnisotropicDiffusionIntegrator.cpp:131-149)."""
-    from saamge_tpu.fem.coefficients import anisotropic_tensor
+    from saamge_jax.fem.coefficients import anisotropic_tensor
     mesh = hex_mesh(8)
     ess = np.ones(mesh.max_bdr_attr(), dtype=np.int64)
     coef = anisotropic_tensor(lambda x: np.array(
@@ -149,7 +149,7 @@ def test_filtered_eig_matches_eigh():
     """Chebyshev-filtered subspace solver vs numpy eigh on a random SPD
     stack (the ARPACK/LAPACK-replacement kernel, ops/filtered_eig.py)."""
     import jax.numpy as jnp
-    from saamge_tpu.ops.filtered_eig import batched_smallest_eigs
+    from saamge_jax.ops.filtered_eig import batched_smallest_eigs
     rng = np.random.default_rng(3)
     B, n, m = 6, 256, 24
     mats = []
@@ -184,7 +184,7 @@ def test_filtered_eig_residual_guard_flags_hard_spectrum():
     batched_eig route those AEs to the exact solver) — the theta-cut
     sensitivity guard (reference spectral.hpp:32-60)."""
     import jax.numpy as jnp
-    from saamge_tpu.ops.filtered_eig import batched_smallest_eigs
+    from saamge_jax.ops.filtered_eig import batched_smallest_eigs
     rng = np.random.default_rng(11)
     n, m = 256, 24
     # Gershgorin-tight matrices (like the weighted-l1-scaled AE

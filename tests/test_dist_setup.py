@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from saamge_tpu.api import SpectralAMGSolver
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import hex_mesh
-from saamge_tpu.topology.part import partition_cartesian_3d
+from saamge_jax.api import SpectralAMGSolver
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import hex_mesh
+from saamge_jax.topology.part import partition_cartesian_3d
 
 
 def _run(setup_mesh, device_setup):

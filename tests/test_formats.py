@@ -10,7 +10,7 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 
-from saamge_tpu.ops.sparse import (DeviceBanded, DeviceDIA, DeviceELL,
+from saamge_jax.ops.sparse import (DeviceBanded, DeviceDIA, DeviceELL,
                                    device_matrix, rcm_permutation)
 
 
@@ -67,7 +67,7 @@ def test_device_matrix_selection():
 
 
 def test_blockrow_matches_scipy():
-    from saamge_tpu.ops.blockrow import DeviceBlockRow
+    from saamge_jax.ops.blockrow import DeviceBlockRow
     rng = np.random.default_rng(0)
     # build a block matrix with contiguous row groups sharing column sets
     n = 90
@@ -90,11 +90,11 @@ def test_blockrow_matches_scipy():
 
 
 def test_compiled_hierarchy_blockrow_matches_plain():
-    from saamge_tpu.api import SpectralAMGSolver, checkerboard_coef
-    from saamge_tpu.config import SolverOptions
-    from saamge_tpu.fem import assemble
-    from saamge_tpu.fem.mesh import quad_mesh
-    from saamge_tpu.solve import compiled
+    from saamge_jax.api import SpectralAMGSolver, checkerboard_coef
+    from saamge_jax.config import SolverOptions
+    from saamge_jax.fem import assemble
+    from saamge_jax.fem.mesh import quad_mesh
+    from saamge_jax.solve import compiled
 
     mesh = quad_mesh(24)
     ess = np.ones(mesh.max_bdr_attr(), dtype=np.int64)
@@ -109,7 +109,7 @@ def test_compiled_hierarchy_blockrow_matches_plain():
                                          use_block_row=False)
     h_block = compiled.compile_hierarchy(s.ml, dtype=jnp.float64,
                                          use_block_row=True)
-    from saamge_tpu.ops.blockrow import DeviceBlockRow
+    from saamge_jax.ops.blockrow import DeviceBlockRow
     assert any(isinstance(lv.A, DeviceBlockRow) for lv in h_block.levels[1:])
     bdev = jnp.asarray(b)
     z1 = np.asarray(compiled.vcycle_apply(h_plain, bdev))
@@ -118,22 +118,30 @@ def test_compiled_hierarchy_blockrow_matches_plain():
 
 
 def test_fused_pallas_smoother_interpret():
-    from saamge_tpu.fem import assemble
-    from saamge_tpu.fem.mesh import quad_mesh
-    from saamge_tpu.ops.pallas_smoother import fused_dia_smoother
-    from saamge_tpu.ops.sparse import DeviceDIA
-    from saamge_tpu.solve import smoothers
+    """A 2D stencil level of compile_hierarchy (haloed passes, the
+    successor of the fused smoother kernel) smooths exactly like the
+    host polynomial smoother."""
+    from saamge_jax.fem import assemble
+    from saamge_jax.fem.mesh import quad_mesh
+    from saamge_jax.ops.sparse import DeviceDIA
+    from saamge_jax.ops.stencil import StencilDIA, inv_tau_arrays
+    from saamge_jax.solve import smoothers
+    from saamge_jax.solve.compiled import CompiledLevel, smooth
 
     mesh = quad_mesh(12)
     ess = np.ones(mesh.max_bdr_attr(), dtype=np.int64)
     A, b, em, _, _ = assemble.build_discrete_problem(
         mesh, coef=1.0, rhs=1.0, ess_attr_marker=ess)
-    dia = DeviceDIA.try_from_csr(A, dtype=jnp.float32)
+    sdia = StencilDIA.from_dia(DeviceDIA.try_from_csr(A, jnp.float32))
     pd = smoothers.init_poly_data(A, 2, "sas")
-    sm = fused_dia_smoother(dia, jnp.asarray(pd.dinv, dtype=jnp.float32),
-                            pd.roots, interpret=True)
+    lv = CompiledLevel(
+        A=sdia, P=None, R=None,
+        dinv=jnp.asarray(pd.dinv, jnp.float32),
+        roots=jnp.asarray(pd.roots, jnp.float32),
+        dinvh=sdia.pad(jnp.asarray(pd.dinv, jnp.float32)),
+        inv_taus=inv_tau_arrays(pd.roots))
     x0 = np.zeros(A.shape[0])
-    y = np.asarray(sm(jnp.asarray(b, dtype=jnp.float32),
-                      jnp.asarray(x0, dtype=jnp.float32)))
+    y = np.asarray(smooth(lv, jnp.asarray(b, dtype=jnp.float32),
+                          jnp.asarray(x0, dtype=jnp.float32)))
     ref = smoothers.compute_poly(A, b, x0.copy(), pd.roots, pd.dinv)
     assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-5

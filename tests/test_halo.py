@@ -10,10 +10,10 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 from jax.sharding import Mesh as JaxMesh, NamedSharding, PartitionSpec as P
 
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import hex_mesh
-from saamge_tpu.parallel.halo import HaloDIA, halo_smoother_fn, halo_spmv_fn
-from saamge_tpu.solve import smoothers
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import hex_mesh
+from saamge_jax.parallel.halo import HaloDIA, halo_smoother_fn, halo_spmv_fn
+from saamge_jax.solve import smoothers
 
 
 def _mesh(n):

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import scipy.sparse.linalg as spla
 
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem.helmholtz import ls_helmholtz_system
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem.helmholtz import ls_helmholtz_system
 
 
 def test_system_dimensions():
@@ -32,13 +32,13 @@ def test_system_spd_and_solvable():
 @pytest.mark.parametrize("k,max_iters", [(-20.0, 56), (-50.0, 115)])
 def test_ls_helmholtz_algebraic_pcg(k, max_iters):
     """csv_data baselines: 56 iterations at k=-20, 115 at k=-50."""
-    from saamge_tpu.api import SAAMGeAlgPC
+    from saamge_jax.api import SAAMGeAlgPC
     sys = ls_helmholtz_system(k=k)
     opts = SolverOptions(theta=0.003, nu_relax=3, correct_nulspace=False,
                          first_elems_per_agg=256, rtol=0.0, maxiter=600)
     pc = SAAMGeAlgPC(sys.A, opts, eliminate_dof0=False)
     # reference uses AbsTol=1e-10 on (B r, r)
-    from saamge_tpu.solve.pcg import pcg
+    from saamge_jax.solve.pcg import pcg
     res = pcg(sys.A, sys.b, pc.mult, rel_tol=0.0, abs_tol=1e-10,
               max_iter=600)
     assert res.converged
@@ -56,8 +56,8 @@ def test_ls_helmholtz_compiled_device_solve():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from saamge_tpu.api import SAAMGeAlgPC
-    from saamge_tpu.solve.compiled import compile_two_level, pcg_solve
+    from saamge_jax.api import SAAMGeAlgPC
+    from saamge_jax.solve.compiled import compile_two_level, pcg_solve
 
     sys_ = ls_helmholtz_system(k=-20.0)
     opts = SolverOptions(theta=0.003, correct_nulspace=False,

@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 import scipy.sparse.linalg as spla
 
-from saamge_tpu.api import SpectralAMGSolver
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import hex_mesh, quad_mesh, read_mesh
+from saamge_jax.api import SpectralAMGSolver
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import hex_mesh, quad_mesh, read_mesh
 
 
 def _solve_direct(mesh, order):

@@ -4,14 +4,14 @@ import os
 
 import numpy as np
 
-from saamge_tpu.api import SpectralAMGSolver, checkerboard_coef
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.coefficients import InversePermeability, anisotropic_tensor
-from saamge_tpu.fem.mesh import quad_mesh
-from saamge_tpu.solve.pcg import pcg
-from saamge_tpu.solve.vcycle import VCycleSolver
-from saamge_tpu.utils.serialize import load_hierarchy, save_hierarchy
+from saamge_jax.api import SpectralAMGSolver, checkerboard_coef
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.coefficients import InversePermeability, anisotropic_tensor
+from saamge_jax.fem.mesh import quad_mesh
+from saamge_jax.solve.pcg import pcg
+from saamge_jax.solve.vcycle import VCycleSolver
+from saamge_jax.utils.serialize import load_hierarchy, save_hierarchy
 
 
 def test_save_load_roundtrip(tmp_path):

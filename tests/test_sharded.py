@@ -13,15 +13,15 @@ import jax.numpy as jnp
 from jax.sharding import (Mesh as JaxMesh, NamedSharding,
                           PartitionSpec as P)
 
-from saamge_tpu.api import SpectralAMGSolver, checkerboard_coef
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import quad_mesh
-from saamge_tpu.parallel.sharded import (make_sharded_pcg,
+from saamge_jax.api import SpectralAMGSolver, checkerboard_coef
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import quad_mesh
+from saamge_jax.parallel.sharded import (make_sharded_pcg,
                                          make_sharded_vcycle,
                                          shard_hierarchy, shard_vector,
                                          unshard_vector)
-from saamge_tpu.solve import compiled
+from saamge_jax.solve import compiled
 
 
 @pytest.fixture(scope="module")
@@ -100,7 +100,7 @@ def test_sharded_pcg_iteration_parity(problem):
 
 
 def test_sharded_pcg_jit_matches(problem):
-    from saamge_tpu.parallel.sharded import make_sharded_pcg_jit
+    from saamge_jax.parallel.sharded import make_sharded_pcg_jit
     A, b, s = problem
     res_host = s.solve(b)
     mesh = JaxMesh(_devices(8), axis_names=("dp",))
@@ -116,7 +116,7 @@ def test_sharded_pcg_jit_matches(problem):
 def test_device_count_invariance():
     """Multilevel (3-level) problem: identical iteration counts on 1, 2 and
     8 devices through the halo path (pmltest with more 'ranks')."""
-    from saamge_tpu.parallel.sharded import make_sharded_pcg_jit
+    from saamge_jax.parallel.sharded import make_sharded_pcg_jit
     mesh = quad_mesh(32)
     ess = np.ones(mesh.max_bdr_attr(), dtype=np.int64)
     A, b, em, _, _ = assemble.build_discrete_problem(
@@ -137,8 +137,8 @@ def test_device_count_invariance():
 
 
 def test_cartesian_partitioner():
-    from saamge_tpu.fem.mesh import quad_mesh
-    from saamge_tpu.topology.part import (partition_cartesian_2d,
+    from saamge_jax.fem.mesh import quad_mesh
+    from saamge_jax.topology.part import (partition_cartesian_2d,
                                           partition_identity)
     mesh = quad_mesh(8)
     part = partition_cartesian_2d(mesh.elem_centers(), 2, 2)
@@ -153,7 +153,7 @@ def test_far_exchange_spmv_matches_scipy():
     actually engaged (far is not None) and comm volume ~ window + F."""
     import scipy.sparse as sp
     from jax import shard_map
-    from saamge_tpu.parallel.sharded import (_build_halo_op, _shard_op,
+    from saamge_jax.parallel.sharded import (_build_halo_op, _shard_op,
                                              _spmv)
 
     rng = np.random.default_rng(11)
@@ -191,7 +191,7 @@ def test_sharded_smoothed_P_matches_compiled():
     stencils, so their halos widen — the sharded V-cycle must still
     equal the single-device compiled one and keep device-count
     invariance (the distributed story for SA-smoothed interpolation)."""
-    from saamge_tpu.parallel.sharded import make_sharded_pcg_jit
+    from saamge_jax.parallel.sharded import make_sharded_pcg_jit
     mesh = quad_mesh(16)
     ess = np.ones(mesh.max_bdr_attr(), dtype=np.int64)
     A, b, em, _, _ = assemble.build_discrete_problem(
@@ -224,7 +224,7 @@ def test_sharded_invx_smoother_matches_compiled():
     """invx family (two mixed root chains, smpr.cpp:213-234/smpr_invx):
     the sharded V-cycle must equal the single-device compiled one, and
     PCG with the invx smoother must keep device-count invariance."""
-    from saamge_tpu.parallel.sharded import make_sharded_pcg_jit
+    from saamge_jax.parallel.sharded import make_sharded_pcg_jit
     mesh = quad_mesh(16)
     ess = np.ones(mesh.max_bdr_attr(), dtype=np.int64)
     A, b, em, _, _ = assemble.build_discrete_problem(

@@ -7,18 +7,18 @@ and cross-rank traffic bounded by the interface size."""
 import numpy as np
 import pytest
 
-from saamge_tpu.api import bdr_dof_flags
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import hex_mesh, quad_mesh
-from saamge_tpu.parallel.spmd_setup import (assemble_global_A, spmd_coarsen,
+from saamge_jax.api import bdr_dof_flags
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import hex_mesh, quad_mesh
+from saamge_jax.parallel.spmd_setup import (assemble_global_A, spmd_coarsen,
                                             spmd_ml_produce_data)
-from saamge_tpu.setup import tg as tg_mod
-from saamge_tpu.setup.elmat import GeometricProvider
-from saamge_tpu.setup.ml import MultilevelParameters
-from saamge_tpu.solve.pcg import pcg
-from saamge_tpu.solve.vcycle import VCycleSolver
-from saamge_tpu.topology.agglomerate import create_partitioning_fine
-from saamge_tpu.topology.part import partition_cartesian_3d
+from saamge_jax.setup import tg as tg_mod
+from saamge_jax.setup.elmat import GeometricProvider
+from saamge_jax.setup.ml import MultilevelParameters
+from saamge_jax.solve.pcg import pcg
+from saamge_jax.solve.vcycle import VCycleSolver
+from saamge_jax.topology.agglomerate import create_partitioning_fine
+from saamge_jax.topology.part import partition_cartesian_3d
 
 
 @pytest.fixture(scope="module")
@@ -39,8 +39,8 @@ def problem3d():
 def _pcg_iters(A, b, P, Ac, nu_relax=3, theta=0.05):
     tg = tg_mod.TGData(
         interp_data=None, poly_data=None, theta=theta, smooth_interp=False)
-    from saamge_tpu.solve import smoothers
-    from saamge_tpu.solve.coarse import make_coarse_solver
+    from saamge_jax.solve import smoothers
+    from saamge_jax.solve.coarse import make_coarse_solver
     tg.poly_data = smoothers.init_poly_data(A, nu_relax, "sas")
     tg.tent_interp = P.tocsr()
     tg.interp = P.tocsr()
@@ -145,7 +145,7 @@ def test_spmd_three_level_matches_serial(problem3d):
     """Full MLData via spmd_ml_produce_data: identical coarse dimensions
     and PCG iterations as the single-host ml_produce_data with the same
     parameters (kway seeds included)."""
-    from saamge_tpu.setup.ml import ml_produce_data
+    from saamge_jax.setup.ml import ml_produce_data
     mesh, A, b, em, e2d, e2e, flags, part = problem3d
     mlp_kwargs = dict(num_coarsenings=2, nparts_arr=[27, 4],
                       first_theta=0.05, theta=0.05,
@@ -219,8 +219,8 @@ def test_spmd_smoothed_prolongator(problem3d):
     """Distributed interp smoothing (ghost-P-row halo per root) matches
     the single-host interp_smooth applied to the same tentative P, and
     the distributed RAP uses the smoothed rows."""
-    from saamge_tpu.setup.interp import interp_smooth
-    from saamge_tpu.solve.smoothers import sa_poly_roots, weighted_l1_dinv
+    from saamge_jax.setup.interp import interp_smooth
+    from saamge_jax.solve.smoothers import sa_poly_roots, weighted_l1_dinv
     mesh, A, b, em, e2d, e2e, flags, part = problem3d
     nu = 2
     out = spmd_coarsen(e2d, e2e, em, flags, 8, partitioning=part.copy(),
@@ -241,7 +241,7 @@ def test_spmd_mldata_compiles_to_device(problem3d):
     """The SPMD-built MLData drives the jitted device solve path
     (solve/compiled.py) with host-iteration parity."""
     import jax.numpy as jnp
-    from saamge_tpu.solve import compiled
+    from saamge_jax.solve import compiled
     mesh, A, b, em, e2d, e2e, flags, part = problem3d
     mlp = MultilevelParameters(num_coarsenings=2, nparts_arr=[27, 4],
                                first_theta=0.05, theta=0.05,
@@ -272,7 +272,7 @@ def test_spmd_hierarchy_reuse_after_matrix_change(problem3d):
     hierarchy-reuse pattern, reference adapt.cpp:189): same coarse bases,
     refreshed Dinv/RAP after A <- A + I."""
     import scipy.sparse as sps
-    from saamge_tpu.setup.adapt import adapt_update_operators_ml
+    from saamge_jax.setup.adapt import adapt_update_operators_ml
     mesh, A, b, em, e2d, e2e, flags, part = problem3d
     mlp = MultilevelParameters(num_coarsenings=2, nparts_arr=[27, 4],
                                first_theta=0.05, theta=0.05,
@@ -300,7 +300,7 @@ def test_spmd_recursive_coarsenings(problem3d):
     coarse element matrices, operator rows from the distributed RAP).
     The recursed distributed RAP matches the controller triple product
     and the hierarchy solves at AMG-grade iteration counts."""
-    from saamge_tpu.parallel.spmd_setup import spmd_coarsen_from
+    from saamge_jax.parallel.spmd_setup import spmd_coarsen_from
     mesh, A, b, em, e2d, e2e, flags, part = problem3d
     out0 = spmd_coarsen(e2d, e2e, em, flags, 4, partitioning=part.copy(),
                         theta=0.05, use_truncated=False)
@@ -336,10 +336,10 @@ def test_spmd_setup_feeds_sharded_solve(problem3d):
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
-    from saamge_tpu.parallel.sharded import (make_sharded_pcg_jit,
+    from saamge_jax.parallel.sharded import (make_sharded_pcg_jit,
                                              shard_hierarchy, shard_vector,
                                              unshard_vector)
-    from saamge_tpu.solve import compiled
+    from saamge_jax.solve import compiled
     mesh_, A, b, em, e2d, e2e, flags, part = problem3d
     mlp = MultilevelParameters(num_coarsenings=1, nparts_arr=[27],
                                first_theta=0.05, theta=0.05,

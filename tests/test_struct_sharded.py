@@ -13,15 +13,15 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from saamge_tpu.api import SpectralAMGSolver
-from saamge_tpu.config import SolverOptions
-from saamge_tpu.fem import assemble
-from saamge_tpu.fem.mesh import hex_mesh
-from saamge_tpu.topology.part import partition_cartesian_3d
-from saamge_tpu.solve.structured import (BrickGeometry, compile_structured,
+from saamge_jax.api import SpectralAMGSolver
+from saamge_jax.config import SolverOptions
+from saamge_jax.fem import assemble
+from saamge_jax.fem.mesh import hex_mesh
+from saamge_jax.topology.part import partition_cartesian_3d
+from saamge_jax.solve.structured import (BrickGeometry, compile_structured,
                                          struct_pcg_solve,
                                          struct_vcycle_apply)
-from saamge_tpu.parallel.structured_sharded import (
+from saamge_jax.parallel.structured_sharded import (
     gather_fine, make_struct_sharded_pcg, make_struct_sharded_vcycle,
     scatter_fine, shard_structured)
 
@@ -45,12 +45,8 @@ def _setup(n=8, nb=4, num_levels=3):
 @pytest.mark.parametrize("ndev", [2, 4])
 def test_sharded_struct_vcycle_matches_single(ndev):
     s, A, b, geo = _setup(8, 4, 3)
-    # mid_resident=False: the sharded mirror runs the chained-XLA mid
-    # loop; the resident kernel's per-offset sequential f32 accumulation
-    # differs by rounding order, which would make the 1e-5 equality and
-    # exact-iteration asserts fragile
     h = compile_structured(s.ml, geo, fine_layout="zlane",
-                           mid_format="brickblock", mid_resident=False)
+                           mid_format="brickblock")
     y_ref = np.asarray(struct_vcycle_apply(h, jnp.asarray(b, jnp.float32)))
 
     mesh = Mesh(np.array(jax.devices("cpu")[:ndev]), ("dp",))
@@ -68,7 +64,7 @@ def test_sharded_struct_pcg_device_count_invariant(ndev):
         pytest.skip("needs virtual device mesh")
     s, A, b, geo = _setup(8, 8, 3)   # brick=1 so BX=8 divides every ndev
     h = compile_structured(s.ml, geo, fine_layout="zlane",
-                           mid_format="brickblock", mid_resident=False)
+                           mid_format="brickblock")
     _, it_ref, _ = struct_pcg_solve(h, jnp.asarray(b, jnp.float32),
                                     max_iter=80)
 
@@ -83,50 +79,17 @@ def test_sharded_struct_pcg_device_count_invariant(ndev):
     assert rel < 1e-4, rel
 
 
-@pytest.mark.parametrize("ndev", [2, 4])
-def test_sharded_struct_window_contract_matches_single(ndev):
-    """Sharding invariance of the fused window-contraction path: the
-    per-slab window kernels (ops/pallas_window.py under shard_map) must
-    reproduce the single-device windowed V-cycle and PCG counts."""
-    s, A, b, geo = _setup(8, 4, 3)
-    h = compile_structured(s.ml, geo, fine_layout="zlane",
-                           mid_format="brickblock", mid_resident=False,
-                           rp_dtype=jnp.bfloat16, window_contract=True)
-    bdev = jnp.asarray(b, jnp.float32)
-    y_ref = np.asarray(struct_vcycle_apply(h, bdev))
-    _, it_ref, _ = struct_pcg_solve(h, bdev, max_iter=80)
-
-    mesh = Mesh(np.array(jax.devices("cpu")[:ndev]), ("dp",))
-    hs = shard_structured(h, mesh)
-    assert hs.wrst is not None
-    bsh = scatter_fine(hs, b)
-    vc = make_struct_sharded_vcycle(hs)
-    y = gather_fine(hs, vc(bsh))
-    assert np.abs(y - y_ref).max() <= 1e-5 * max(np.abs(y_ref).max(),
-                                                 1e-30)
-    solve = make_struct_sharded_pcg(hs, rel_tol=1e-6, max_iter=80)
-    x, it = solve(bsh)
-    assert int(it) == int(it_ref), (int(it), int(it_ref))
-    xh = gather_fine(hs, x)
-    rel = np.linalg.norm(b - A @ xh) / np.linalg.norm(b)
-    assert rel < 1e-4, rel
-
-
 @pytest.mark.parametrize("ndev", [4])
 def test_sharded_struct_bf16_twins_match_single(ndev):
     """The flagship dtype configuration (bf16 smoother twin + bf16 mid
     blocks + bf16 tent blocks) shards with the same per-row arithmetic:
     sharded V-cycle equals the single-chip bf16 V-cycle."""
     s, A, b, geo = _setup(8, 4, 3)
-    # mid_resident=False: the sharded path mirrors the chained-XLA mid
-    # smoother (x rounded to bf16 per pass); the VMEM-resident kernel
-    # keeps x f32, a ~1e-3 semantic difference on bf16 blocks
     h = compile_structured(s.ml, geo, fine_layout="zlane",
                            mid_format="brickblock",
                            mid_dtype=jnp.bfloat16,
                            smoother_dtype=jnp.bfloat16,
-                           rp_dtype=jnp.bfloat16,
-                           mid_resident=False)
+                           rp_dtype=jnp.bfloat16)
     y_ref = np.asarray(struct_vcycle_apply(h, jnp.asarray(b, jnp.float32)))
 
     mesh = Mesh(np.array(jax.devices("cpu")[:ndev]), ("dp",))
@@ -145,68 +108,25 @@ def test_sharded_struct_bf16_twins_match_single(ndev):
 
 
 @pytest.mark.parametrize("ndev", [2, 4])
-def test_sharded_struct_resident_mid_replicated_matches_single(ndev):
-    """VERDICT r3 item 4 (replicated-mid OPT-IN since round 5): with
-    mid_replicated=True the sharded mirror replicates the MidBundle and
-    runs the exact single-chip mid_correct on the all-gathered coarse
-    residual, so the V-cycle matches bitwise-level and PCG iteration
-    counts are equal."""
+def test_sharded_struct_distributed_mid_default(ndev):
+    """The bf16 configuration DISTRIBUTES the mid level — blocks/dinv1
+    sharded by brick-x layer, O(N1/P) per-device mid bytes — and its
+    per-root chained loop matches the single-device chain (same
+    per-element arithmetic; halo bricks equal interior bricks), so
+    V-cycle equality is tight and iteration counts match."""
+    from saamge_jax.parallel.structured_sharded import mid_bytes_per_device
     s, A, b, geo = _setup(8, 4, 3)
     h = compile_structured(s.ml, geo, fine_layout="zlane",
                            mid_format="brickblock",
                            mid_dtype=jnp.bfloat16,
                            smoother_dtype=jnp.bfloat16,
-                           rp_dtype=jnp.bfloat16,
-                           window_contract=True)
-    assert h.A1kT is not None, "resident mid chain should engage"
+                           rp_dtype=jnp.bfloat16)
     bdev = jnp.asarray(b, jnp.float32)
     y_ref = np.asarray(struct_vcycle_apply(h, bdev))
     _, it_ref, _ = struct_pcg_solve(h, bdev, max_iter=80)
 
     mesh = Mesh(np.array(jax.devices("cpu")[:ndev]), ("dp",))
-    hs = shard_structured(h, mesh, mid_replicated=True)
-    assert hs.mb is not None
-    bsh = scatter_fine(hs, b)
-    y = gather_fine(hs, make_struct_sharded_vcycle(hs)(bsh))
-    assert np.abs(y - y_ref).max() <= 1e-5 * max(np.abs(y_ref).max(),
-                                                 1e-30)
-    x, it = make_struct_sharded_pcg(hs, max_iter=80)(bsh)
-    assert int(it) == int(it_ref), (int(it), int(it_ref))
-    xh = gather_fine(hs, x)
-    rel = np.linalg.norm(b - A @ xh) / np.linalg.norm(b)
-    assert rel < 1e-4, rel
-
-
-@pytest.mark.parametrize("ndev", [2, 4])
-def test_sharded_struct_distributed_mid_default(ndev):
-    """VERDICT r4 item 3: the flagship configuration now DISTRIBUTES
-    the mid level by default — blocks/dinv1 sharded by brick-x layer,
-    O(N1/P) per-device mid bytes — and its per-root chained loop
-    matches the single-chip mid_resident=False twin EXACTLY (same
-    per-element arithmetic; halo bricks equal interior bricks), so
-    V-cycle equality is tight and iteration counts match."""
-    from saamge_tpu.parallel.structured_sharded import mid_bytes_per_device
-    s, A, b, geo = _setup(8, 4, 3)
-    h = compile_structured(s.ml, geo, fine_layout="zlane",
-                           mid_format="brickblock",
-                           mid_dtype=jnp.bfloat16,
-                           smoother_dtype=jnp.bfloat16,
-                           rp_dtype=jnp.bfloat16,
-                           window_contract=True)
-    assert h.A1kT is not None, "resident mid chain should engage"
-    h_ref = compile_structured(s.ml, geo, fine_layout="zlane",
-                               mid_format="brickblock",
-                               mid_dtype=jnp.bfloat16,
-                               smoother_dtype=jnp.bfloat16,
-                               rp_dtype=jnp.bfloat16,
-                               window_contract=True, mid_resident=False)
-    bdev = jnp.asarray(b, jnp.float32)
-    y_ref = np.asarray(struct_vcycle_apply(h_ref, bdev))
-    _, it_ref, _ = struct_pcg_solve(h_ref, bdev, max_iter=80)
-
-    mesh = Mesh(np.array(jax.devices("cpu")[:ndev]), ("dp",))
     hs = shard_structured(h, mesh)
-    assert hs.mb is None, "default must distribute the mid level"
     acct = mid_bytes_per_device(hs)
     total_mid = h.A1d.nbytes + h.dinv1.size * h.dinv1.dtype.itemsize \
         + h.R1.size * h.R1.dtype.itemsize
@@ -225,12 +145,11 @@ def test_sharded_struct_distributed_mid_default(ndev):
 
 @pytest.mark.parametrize("ndev", [2])
 def test_production_regime_sharded(ndev):
-    """VERDICT r4 item 8: the production-kernel-regime check (resident
-    mid + fused windows + full bf16 + superbrick coarsest + wavefront
-    single-chip twin, every engagement asserted) as a SUITE regression —
-    shared implementation with the driver dryrun
-    (saamge_tpu/parallel/checks.py), run here at a smaller size."""
-    from saamge_tpu.parallel.checks import production_regime_sharded_check
+    """The flagship-configuration sharded check (full bf16 + superbrick
+    coarsest) as a SUITE regression — shared implementation with the
+    dryrun (saamge_jax/parallel/checks.py), run here at a smaller
+    size."""
+    from saamge_jax.parallel.checks import production_regime_sharded_check
     mesh = Mesh(np.array(jax.devices("cpu")[:ndev]), ("dp",))
     out = production_regime_sharded_check(mesh, ns=24, brick=3)
     assert out["iters"] == out["iters_ref"]
@@ -241,9 +160,8 @@ def test_sharded_struct_superbrick_coarsest(ndev):
     """Superbrick (structured block-diagonal) coarsest restriction,
     DISTRIBUTED: the level-2 tent blocks shard by flat superbrick
     chunks (_mid_coarsest_sb) with identical per-superbrick arithmetic
-    to the single-chip mid_apply_R1/P1, so parity against the
-    mid_resident=False twin is exact."""
-    from saamge_tpu.topology.part import partition_cartesian_bricks
+    to the single-device mid_apply_R1/P1, so parity is exact."""
+    from saamge_jax.topology.part import partition_cartesian_bricks
     n, nb = 8, 4
     mesh_h = hex_mesh(n)
     ess = np.ones(mesh_h.max_bdr_attr(), dtype=np.int64)
@@ -264,21 +182,15 @@ def test_sharded_struct_superbrick_coarsest(ndev):
     geo = BrickGeometry((nb,) * 3, (n // nb,) * 3)
     h = compile_structured(s.ml, geo, fine_layout="zlane",
                            mid_format="brickblock",
-                           super_bricks=supers, window_contract=True,
-                           rp_dtype=jnp.bfloat16)
+                           super_bricks=supers, rp_dtype=jnp.bfloat16)
     assert h.Rst1 is not None
-    h_ref = compile_structured(s.ml, geo, fine_layout="zlane",
-                               mid_format="brickblock",
-                               super_bricks=supers, window_contract=True,
-                               rp_dtype=jnp.bfloat16, mid_resident=False)
     bdev = jnp.asarray(b, jnp.float32)
-    y_ref = np.asarray(struct_vcycle_apply(h_ref, bdev))
-    _, it_ref, _ = struct_pcg_solve(h_ref, bdev, max_iter=80)
+    y_ref = np.asarray(struct_vcycle_apply(h, bdev))
+    _, it_ref, _ = struct_pcg_solve(h, bdev, max_iter=80)
 
     mesh = Mesh(np.array(jax.devices("cpu")[:ndev]), ("dp",))
     hs = shard_structured(h, mesh)
-    assert hs.mb is None and hs.rst1 is not None, \
-        "superbrick coarsest must distribute"
+    assert hs.rst1 is not None, "superbrick coarsest must distribute"
     bsh = scatter_fine(hs, b)
     y = gather_fine(hs, make_struct_sharded_vcycle(hs)(bsh))
     assert np.abs(y - y_ref).max() <= 1e-5 * max(np.abs(y_ref).max(),

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from saamge_tpu.utils.tables import Table
+from saamge_jax.utils.tables import Table
 
 
 def test_transpose_roundtrip():
@@ -48,7 +48,7 @@ def test_mult_matches_scipy_pattern():
 
 
 def test_mult_empty_rectangular_right_factor():
-    # ADVICE r3: all-empty right factor selects the rectangular fast
+    # an all-empty right factor selects the rectangular fast
     # path with k=0; must return an empty product, not raise
     a = Table.from_rows(np.array([[0]]), 1)
     b = Table.from_rows([[]], 1)
@@ -57,7 +57,7 @@ def test_mult_empty_rectangular_right_factor():
 
 
 def test_group_rows_zero_width():
-    from saamge_tpu.utils.tables import group_rows
+    from saamge_jax.utils.tables import group_rows
     inv, num = group_rows(np.zeros((5, 0), dtype=np.int64))
     assert num == 1 and np.array_equal(inv, np.zeros(5, dtype=np.int64))
     inv0, num0 = group_rows(np.zeros((0, 0), dtype=np.int64))

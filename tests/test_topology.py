@@ -1,11 +1,11 @@
 import numpy as np
 import pytest
 
-from saamge_tpu.fem.mesh import quad_mesh, read_mesh
-from saamge_tpu.topology.agglomerate import (FLAG_BETWEEN_AES,
+from saamge_jax.fem.mesh import quad_mesh, read_mesh
+from saamge_jax.topology.agglomerate import (FLAG_BETWEEN_AES,
                                              create_partitioning_fine)
-from saamge_tpu.topology.part import connected_components, partition_kway
-from saamge_tpu.utils.tables import Table
+from saamge_jax.topology.part import connected_components, partition_kway
+from saamge_jax.utils.tables import Table
 
 TESTMESH_PARTITION = np.array([0, 0, 1, 1, 0, 0, 2, 2, 3, 3, 3, 2])
 
@@ -13,7 +13,7 @@ TESTMESH_PARTITION = np.array([0, 0, 1, 1, 0, 0, 2, 2, 3, 3, 3, 2])
 def _testmesh_rels():
     mesh = read_mesh("/root/reference/amg/test/mltest.mesh")
     import scipy.sparse as sp
-    from saamge_tpu.fem import assemble
+    from saamge_jax.fem import assemble
     A, b, em, e2d, ess = assemble.build_discrete_problem(
         mesh, coef=1.0, ess_attr_marker=np.array([0, 0, 0, 1]))
     return mesh, create_partitioning_fine(
@@ -53,7 +53,7 @@ def test_testmesh_mises():
 
 def test_mis_partition_of_dofs():
     mesh = quad_mesh(10)
-    from saamge_tpu.fem import assemble
+    from saamge_jax.fem import assemble
     A, b, em, e2d, ess = assemble.build_discrete_problem(mesh, coef=1.0)
     rels = create_partitioning_fine(A, mesh.elem_to_dof(),
                                     mesh.elem_to_elem(), None, None, 8)
@@ -85,7 +85,7 @@ def test_partitioner_connected_and_balanced():
 
 def test_aggregates_mode_disjoint():
     mesh = quad_mesh(8)
-    from saamge_tpu.fem import assemble
+    from saamge_jax.fem import assemble
     A, b, em, e2d, ess = assemble.build_discrete_problem(mesh, coef=1.0)
     rels = create_partitioning_fine(A, mesh.elem_to_dof(),
                                     mesh.elem_to_elem(), None, None, 4,
@@ -101,7 +101,7 @@ def test_elem_to_elem_grid_fast_path_parity():
     must produce the identical Table to the generic face-matching path
     (same indptr, same within-row ascending neighbor order)."""
     import numpy as np
-    from saamge_tpu.fem.mesh import hex_mesh
+    from saamge_jax.fem.mesh import hex_mesh
 
     for dims in [(2, 3, 4), (3, 3, 3), (1, 4, 2), (4, 4, 1)]:
         m = hex_mesh(*dims)

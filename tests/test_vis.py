@@ -4,10 +4,10 @@ import os
 
 import numpy as np
 
-from saamge_tpu.api import (SpectralAMGSolver, bdr_dof_flags,
+from saamge_jax.api import (SpectralAMGSolver, bdr_dof_flags,
                             checkerboard_coef, geometric_partitioning)
-from saamge_tpu.fem import assemble, vis
-from saamge_tpu.fem.mesh import quad_mesh
+from saamge_jax.fem import assemble, vis
+from saamge_jax.fem.mesh import quad_mesh
 
 
 def test_vtk_outputs(tmp_path):
@@ -44,8 +44,8 @@ def test_glvis_socket_protocol_roundtrip(tmp_path):
     through our own MFEM reader, and the field values must survive."""
     import socket
     import threading
-    from saamge_tpu.fem import glvis
-    from saamge_tpu.fem.mesh import quad_mesh, read_mfem_mesh
+    from saamge_jax.fem import glvis
+    from saamge_jax.fem.mesh import quad_mesh, read_mfem_mesh
 
     mesh = quad_mesh(4)
     x = np.arange(mesh.num_vertices, dtype=np.float64) * 0.5
@@ -91,8 +91,8 @@ def test_glvis_socket_protocol_roundtrip(tmp_path):
 
 
 def test_glvis_partitioning_l2_field():
-    from saamge_tpu.fem import glvis
-    from saamge_tpu.fem.mesh import hex_mesh
+    from saamge_jax.fem import glvis
+    from saamge_jax.fem.mesh import hex_mesh
     mesh = hex_mesh(4)
     part = np.arange(mesh.num_elements) % 8
     s = glvis.mfem_gf_str(mesh, part.astype(float), l2=True)
@@ -103,8 +103,8 @@ def test_glvis_partitioning_l2_field():
 
 
 def test_glvis_png_quicklook(tmp_path):
-    from saamge_tpu.fem import glvis
-    from saamge_tpu.fem.mesh import hex_mesh, quad_mesh
+    from saamge_jax.fem import glvis
+    from saamge_jax.fem.mesh import hex_mesh, quad_mesh
     m2 = quad_mesh(5)
     x2 = np.linspace(0, 1, m2.num_vertices)
     p2 = tmp_path / "q.png"
